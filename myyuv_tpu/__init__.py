@@ -1,11 +1,11 @@
-"""myyuv-tpu: a TPU-native batched image codec engine.
+"""myyuv-tpu: a JAX batched image codec engine for NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference C++ project ``mahbhlddnhakkh/yuv-manipulations-2`` (the "myyuv"
 library/CLI/viewers): BMP XRGB8888 -> IYUV 4:2:0 conversion, an 8x8 DCT-II +
 quality-scaled quantization + per-block canonical Huffman codec over the
 byte-compatible ``.myyuv`` container, batched over frames and sharded over
-TPU device meshes.
+device meshes.
 
 Layering (bottom-up, SURVEY.md §8):
   formats/  — byte-exact BMP / .myyuv / compressed-stream containers (host)
@@ -24,14 +24,19 @@ from .engine.host_codec import register_host_codecs
 
 register_host_codecs()
 
-# The JAX engine upgrades the registry entries to the batched TPU pipelines
-# when imported; importing it here keeps `import myyuv_tpu` one-stop.
-try:  # pragma: no cover - exercised indirectly everywhere
-    from .engine import pipeline as _pipeline  # noqa: F401
+# The JAX engine upgrades the registry entries to the batched device
+# pipelines when imported; importing it here keeps `import myyuv_tpu`
+# one-stop. Only a missing jax leaves the host paths in charge: any other
+# failure of the device engine propagates instead of hiding the device.
+try:
+    from .engine import pipeline as _pipeline
+except ImportError as e:
+    if e.name is None or not e.name.startswith("jax"):
+        raise
+    _HAVE_JAX_ENGINE = False
+else:
     _pipeline.register_engine_codecs()
     _HAVE_JAX_ENGINE = True
-except Exception:  # jax missing/broken: host paths remain registered
-    _HAVE_JAX_ENGINE = False
 
 __all__ = [
     "BMPImage", "YUVImage", "FourccFormats", "Compressions", "fourcc",

@@ -1,7 +1,7 @@
 """Command-line driver mirroring the reference ``myyuv_cli``.
 
 Command surface (reference: myyuv_cli/main.cpp:80-98 usage, 215-244 magic
-dispatch) plus TPU-era extensions:
+dispatch) plus device-era extensions:
 
   myyuv <image> -info
   myyuv <image.bmp> -to_yuv IYUV [-o out.myyuv]
@@ -31,6 +31,7 @@ from .runtime.errors import MyYUVError
 
 _FORMATS = {"IYUV": FourccFormats.IYUV}
 _COMPRESSIONS = {"DCT": Compressions.DCT}
+_PLATFORMS = ("auto", "cpu", "gpu")
 
 
 class _Timer:
@@ -134,7 +135,7 @@ def _preview(img_path: Path, kind: str, out: Optional[Path]) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="myyuv",
-        description="TPU-native myyuv codec CLI (reference: myyuv_cli)")
+        description="myyuv codec CLI on JAX (reference: myyuv_cli)")
     p.add_argument("image", type=Path)
     g = p.add_mutually_exclusive_group(required=True)
     g.add_argument("-info", action="store_true")
@@ -166,7 +167,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="drive the fly camera along the scripted path "
                         "(headless stand-in for WASD/arrows)")
     p.add_argument("-o", "--output", type=Path, default=None)
-    p.add_argument("--platform", choices=["auto", "cpu", "tpu"],
+    p.add_argument("--platform", choices=_PLATFORMS,
                    default="auto",
                    help="JAX platform for the compute path (default auto; "
                         "'cpu' avoids device compiles for one-shot use)")
@@ -177,9 +178,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "'cpu' = fused native CPU codec")
     args = p.parse_args(argv)
 
-    if args.platform == "cpu":
+    if args.platform != "auto":
         import jax
-        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_platforms", args.platform)
     from .runtime import jaxcache
     jaxcache.enable()
 

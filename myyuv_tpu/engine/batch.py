@@ -5,7 +5,8 @@ axis; the block axis of each plane can additionally shard over the ``block``
 axis (the sequence-parallel analog for 4K frames, SURVEY.md §5). The only
 cross-block reductions in the codec are statistics — per-symbol histograms
 (the global Huffman/RD statistics) and distortion sums — which XLA lowers to
-``psum``-style collectives over ICI when outputs are requested replicated.
+``psum``-style collectives over the device interconnect when outputs are
+requested replicated.
 
 These functions are pure and jit-once; the ragged entropy stage stays on the
 host (engine.pipeline / native), fed by the dense coefficient tensors
@@ -39,7 +40,7 @@ def plane_qtables(qualities) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
 def symbol_histogram(coeffs: jnp.ndarray) -> jnp.ndarray:
     """Global [NUM_SYMBOLS] int32 histogram of quantized coefficients.
 
-    The TPU-native generalization of the reference's per-block frequency
+    The batched generalization of the reference's per-block frequency
     count (Huffman.cpp:204-212): one scatter-add over the whole batch; under
     pjit the replicated output becomes an all-reduce over the mesh.
     """
@@ -111,7 +112,7 @@ def make_sharded_roundtrip(mesh, precision: str = "exact"):
 
     Frames shard over ``data``; the within-plane block rows shard over
     ``block``; q-tables are replicated; metrics come back replicated, which
-    makes XLA insert the cross-chip reductions (psum over ICI).
+    makes XLA insert the cross-device reductions (psum over NVLink).
     """
     from jax.sharding import NamedSharding, PartitionSpec as P
 

@@ -2,8 +2,9 @@
 
 Mirrors compress_DCT_planar / decompress_DCT_planar (DCT.cpp:371-488) using
 the scalar kernels and the per-block entropy oracle. The JAX engine
-(engine.pipeline) supersedes this on TPU; both register through the same
-codec registry so the container API dispatches identically.
+(engine.pipeline) supersedes this where JAX is available; both register
+through the same codec registry so the container API dispatches
+identically.
 """
 
 from __future__ import annotations

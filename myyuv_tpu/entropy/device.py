@@ -1,4 +1,4 @@
-"""On-TPU vectorized canonical Huffman codec (device entropy stage).
+"""Plain-JAX vectorized canonical Huffman codec (lockstep over blocks).
 
 Decodes (and later encodes) *all blocks of a plane simultaneously* as dense
 [N, 256]-byte lanes on the device, eliminating the host entropy bottleneck
@@ -9,7 +9,7 @@ Bitstream semantics are the reference's per-block chunks (SURVEY.md §7;
 Huffman.cpp): u16 encoded_bits, u8 tree_size, canonical-code groups of
 11-bit symbols, payload bits MSB-first-per-code packed LSB-first in bytes.
 
-Decoder design notes (TPU-first):
+Decoder design notes (every block in lockstep):
 * the per-bit canonical walk (Huffman.cpp:105-141) is reformulated as an
   8-bit peek + closed-form length resolution: with canonical codes,
   symbol length = min L such that (peek >> (8-L)) < first_code[L] +

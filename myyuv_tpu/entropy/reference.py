@@ -1,7 +1,7 @@
 """Scalar (NumPy/Python) model of the per-block canonical Huffman codec.
 
 This is the *oracle* implementation: a direct, readable formulation of the
-bitstream semantics in SURVEY.md §7 used to validate the vectorized TPU
+bitstream semantics in SURVEY.md §7 used to validate the vectorized device
 kernels and for differential tests against the compiled reference CLI. It is
 deliberately per-block and slow.
 

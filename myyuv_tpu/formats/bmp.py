@@ -1,6 +1,6 @@
 """BMP (XRGB8888 / RGB24) container: byte-exact reader/writer.
 
-TPU-native re-design of the reference BMP container
+Re-design of the reference BMP container
 (``myyuv_lib/myyuv_bmp.{hpp,cpp}``): instead of a pointer-owning C++ class we
 keep the raw header fields in a dataclass and the pixel payload as a NumPy
 array, so the hot conversion path can hand a contiguous ``[H, W, 4]`` uint8

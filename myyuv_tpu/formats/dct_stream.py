@@ -11,7 +11,7 @@ Re-design of the reference's serialized compressed-image layout
   block k's chunk starts at the exclusive prefix sum of chunks_sizes[:k]
   (``DCTYUVPlane::getContentPos``, DCT.cpp:21-33).
 
-The TPU-native twist: device kernels operate on *fixed-width lanes*
+The device twist: vectorized kernels operate on *fixed-width lanes*
 ``[num_blocks, MAX_CHUNK]`` uint8 (every per-block Huffman chunk fits in
 <= 255 bytes because its size is stored in a u8), and this module converts
 between the ragged on-disk layout and dense lanes with vectorized prefix-sum

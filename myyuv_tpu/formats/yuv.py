@@ -1,6 +1,6 @@
 """``.myyuv`` container + fourcc/codec registry.
 
-TPU-native re-design of the reference YUV container and its
+Re-design of the reference YUV container and its
 extensible-by-registry dispatch (``myyuv_lib/myyuv_yuv.{hpp,cpp}``). The
 container is a host-side dataclass over NumPy byte arrays; the registry maps
 fourcc formats to geometry descriptors and converter/codec callables, exactly

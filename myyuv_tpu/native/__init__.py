@@ -1,15 +1,20 @@
-"""ctypes binding for the native multithreaded entropy codec.
+"""Native code: the host codec library and the device codec kernels.
 
-Loads (building on first use if necessary) ``libmyyuv_entropy.so`` — the C++
-per-block Huffman encode/decode engine (entropy.cpp). Falls back gracefully:
-``load()`` returns None when no compiler is available, and callers (engine,
-host codec) drop back to the vectorized/py oracle paths.
+``load()`` returns (building on first use if necessary)
+``libmyyuv_entropy.so`` — the C++ per-block Huffman encode/decode engine
+(entropy.cpp) — through ctypes, or None when no compiler is available, and
+callers (engine, host codec) drop back to the vectorized/py oracle paths.
+
+``build_codec_kernels(platform)`` builds the word-frame codec kernels
+(codec_kernels.cu, called through jax.ffi by kernels/codec.py); there is
+no fallback for those. Both libraries compile block_codec.h.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
@@ -31,21 +36,83 @@ def _default_threads() -> int:
     return max(1, os.cpu_count() or 1)
 
 
+def _stale(out: Path, *srcs: Path) -> bool:
+    return (not out.exists()
+            or out.stat().st_mtime < max(s.stat().st_mtime for s in srcs))
+
+
+def _compile(cmd, out: Path) -> None:
+    """Run a compiler command writing ``out`` through a private temporary
+    file, so concurrent builders (test workers) never load a half-written
+    library."""
+    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+    try:
+        subprocess.run(cmd + ["-o", str(tmp)], check=True,
+                       capture_output=True, text=True)
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
 def build(force: bool = False) -> bool:
-    """Compile the shared library (also when the source is newer than
-    the binary — an ABI-stale .so would silently corrupt streams);
-    returns True on success."""
+    """Compile the shared library (also when a source is newer than the
+    binary — an ABI-stale .so would silently corrupt streams); returns
+    True on success."""
     src = _DIR / "entropy.cpp"
-    if (_LIB_PATH.exists() and not force
-            and _LIB_PATH.stat().st_mtime >= src.stat().st_mtime):
+    if not force and not _stale(_LIB_PATH, src, _DIR / "block_codec.h"):
         return True
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
-           "-ffp-contract=off", "-pthread", str(src), "-o", str(_LIB_PATH)]
+           "-ffp-contract=off", "-pthread", f"-I{_DIR}", str(src)]
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
+        _compile(cmd, _LIB_PATH)
     except Exception:
         return False
     return _LIB_PATH.exists()
+
+
+_BUILD_DIR = _DIR.parent.parent / "build"
+_CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else under $CUDA_HOME (default
+    /usr/local/cuda)."""
+    return shutil.which("nvcc") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+
+
+def build_codec_kernels(platform: str) -> Path:
+    """Build (when missing or stale) the word-frame codec kernels of
+    codec_kernels.cu for ``platform`` into ``<checkout>/build`` and
+    return the library path.
+
+    ``"gpu"``: nvcc for Hopper (sm_90a), -fmad=false so the transform's
+    multiply-adds stay separately rounded. ``"cpu"``: the same source as
+    C++ through g++ with -ffp-contract=off. Raises if the build fails —
+    callers never fall back to another implementation."""
+    import jax.ffi
+    src = _DIR / "codec_kernels.cu"
+    out = _BUILD_DIR / f"libmyyuv_codec_{platform}.so"
+    if not _stale(out, src, _DIR / "block_codec.h"):
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    inc = [f"-I{jax.ffi.include_dir()}", f"-I{_DIR}"]
+    if platform == "gpu":
+        cmd = [nvcc(), _CUDA_ARCH, "-std=c++17", "-O3", "-fmad=false",
+               "-shared", "-Xcompiler", "-fPIC", *inc, str(src)]
+    elif platform == "cpu":
+        cmd = ["g++", "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
+               "-ffp-contract=off", *inc, str(src)]
+    else:
+        raise ValueError(f"no codec kernel build for platform {platform!r}")
+    try:
+        _compile(cmd, out)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(
+            f"building {out.name} failed:\n{e.stderr}") from e
+    except OSError as e:
+        raise RuntimeError(f"building {out.name} failed: {e}") from e
+    return out
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -55,7 +122,7 @@ def load() -> Optional[ctypes.CDLL]:
         return _lib
     if _load_failed:
         return None
-    if not _LIB_PATH.exists() and not build():
+    if not build():
         _load_failed = True
         return None
     try:

@@ -1,17 +1,17 @@
-// Native multithreaded per-block canonical Huffman entropy codec.
+// Native multithreaded per-block canonical Huffman codec (host runtime).
 //
-// Host-side runtime component of the TPU framework: the DCT transform and
-// quantization run on the TPU (kernels/device.py); the ragged, data-dependent
-// entropy stage runs here, parallel over 8x8 blocks with std::thread.
+// The host-side codec of the package: the ragged, data-dependent entropy
+// stage (and, for the fused CPU path, the transform) runs here, parallel
+// over 8x8 blocks with std::thread. The per-block arithmetic lives in
+// block_codec.h, which the GPU kernels (codec_kernels.cu) compile too.
 //
-// Written from the bitstream contract in SURVEY.md §7 (reference semantics:
-// myyuv_lib/myyuv_DCT/Huffman.cpp - zigzag scan, trailing-zero trim,
-// optimal Huffman lengths, canonical code assignment with symbols ascending
-// within a length, 11-bit symbol packing LSB-first, MSB-first code emission
-// packed LSB-first within bytes). Produces streams the reference CLI decodes
-// and decodes streams the reference CLI produces; byte-level tie-breaking of
-// the Huffman tree is not part of the contract (any optimal canonical code
-// round-trips).
+// Reference semantics: myyuv_lib/myyuv_DCT/Huffman.cpp (SURVEY.md §7) -
+// zigzag scan, trailing-zero trim, optimal Huffman lengths, canonical code
+// assignment with symbols ascending within a length, 11-bit symbol packing
+// LSB-first, MSB-first code emission packed LSB-first within bytes.
+// Produces streams the reference CLI decodes and decodes streams the
+// reference CLI produces; byte-level tie-breaking of the Huffman tree is
+// not part of the contract (any optimal canonical code round-trips).
 //
 // C ABI (ctypes-friendly); lanes layout = [n_blocks, 256] fixed-width rows
 // matching formats/dct_stream.py MAX_CHUNK.
@@ -25,220 +25,38 @@
 #include <thread>
 #include <vector>
 
+#include "block_codec.h"
+
 namespace {
 
-constexpr int kLane = 256;      // fixed lane width (chunks are 3..255 bytes)
-constexpr int kMaxSyms = 64;    // distinct symbols per block <= message size
+constexpr int kLane = 256;  // fixed lane width (chunks are 3..255 bytes)
 
-// JPEG-style zigzag scan order: message position i reads coefficient
-// kZigzag[i] of the row-major 8x8 block.
-constexpr uint8_t kZigzag[64] = {
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
-
-struct BitWriter {
-  uint8_t* buf;
-  int bitpos = 0;
-  explicit BitWriter(uint8_t* b) : buf(b) {}
-  // append `nbits` (<= 24) of `value`, LSB of value first in stream order
-  // (11-bit symbol packing): whole-field OR into the byte stream.
-  void put_lsb(uint32_t value, int nbits) {
-    uint32_t v = value & ((1u << nbits) - 1u);
-    int byte = bitpos >> 3, sh = bitpos & 7;
-    buf[byte] |= uint8_t(v << sh);
-    buf[byte + 1] |= uint8_t(v >> (8 - sh));
-    buf[byte + 2] |= uint8_t((uint64_t(v) << sh) >> 16);
-    buf[byte + 3] |= uint8_t((uint64_t(v) << sh) >> 24);
-    bitpos += nbits;
-  }
-  // append a length-`len` (<= 8) code MSB-first (payload bit emission)
-  void put_code_msb(uint32_t code, int len) {
-    // reverse `len` bits so stream order (LSB-first in bytes) sees the
-    // code MSB-first
-    uint32_t r = 0;
-    for (int i = 0; i < len; ++i) r |= ((code >> i) & 1u) << (len - 1 - i);
-    put_lsb(r, len);
-  }
-};
-
-struct BitReader {
-  const uint8_t* buf;
-  int bitpos = 0;
-  explicit BitReader(const uint8_t* b) : buf(b) {}
-  uint32_t get_lsb(int nbits) {
-    uint32_t v = 0;
-    for (int i = 0; i < nbits; ++i, ++bitpos)
-      v |= uint32_t((buf[bitpos >> 3] >> (bitpos & 7)) & 1u) << i;
-    return v;
-  }
-  int get_bit() {
-    int b = (buf[bitpos >> 3] >> (bitpos & 7)) & 1;
-    ++bitpos;
-    return b;
-  }
-};
-
-// Optimal Huffman code lengths for `n` symbols with weights `w` (ascending
-// order not required) via sort + two-queue merge; lengths in `len_out`.
-void huffman_lengths(const uint16_t* w, int n, uint8_t* len_out) {
-  if (n == 1) {  // single-symbol message gets code length 1
-    len_out[0] = 1;
-    return;
-  }
-  // order[] = indices sorted ascending by weight (stable for determinism)
-  int order[kMaxSyms];
-  for (int i = 0; i < n; ++i) order[i] = i;
-  std::stable_sort(order, order + n,
-                   [&](int a, int b) { return w[a] < w[b]; });
-  // two-queue merge: leaves (sorted) and internal nodes (created in
-  // non-decreasing weight order). parent[] over node ids:
-  // ids 0..n-1 = leaves in sorted order, n..2n-2 = internal.
-  uint32_t leafw[kMaxSyms], intw[kMaxSyms];
-  int parent[2 * kMaxSyms];
-  for (int i = 0; i < n; ++i) leafw[i] = w[order[i]];
-  int lh = 0, ih = 0, it = 0;  // leaf head, internal head/tail
-  for (int m = 0; m < n - 1; ++m) {
-    int picks[2];
-    for (int p = 0; p < 2; ++p) {
-      bool take_leaf =
-          lh < n && (ih >= it || leafw[lh] <= intw[ih]);
-      if (take_leaf) {
-        picks[p] = lh++;
-      } else {
-        picks[p] = n + ih++;
-      }
+inline uint8_t bitrev8_tbl(uint8_t v) {
+  static const auto tbl = [] {
+    std::array<uint8_t, 256> t{};
+    for (int i = 0; i < 256; ++i) {
+      uint8_t x = uint8_t(i);
+      x = uint8_t(((x & 0xF0) >> 4) | ((x & 0x0F) << 4));
+      x = uint8_t(((x & 0xCC) >> 2) | ((x & 0x33) << 2));
+      x = uint8_t(((x & 0xAA) >> 1) | ((x & 0x55) << 1));
+      t[size_t(i)] = x;
     }
-    uint32_t wsum =
-        (picks[0] < n ? leafw[picks[0]] : intw[picks[0] - n]) +
-        (picks[1] < n ? leafw[picks[1]] : intw[picks[1] - n]);
-    intw[it] = wsum;
-    parent[picks[0]] = n + it;
-    parent[picks[1]] = n + it;
-    ++it;
-  }
-  // depths: root (last internal) has depth 0; internal nodes were created
-  // in order, parents always have larger ids, so sweep ids descending.
-  uint8_t depth[2 * kMaxSyms];
-  depth[n + it - 1] = 0;
-  for (int id = n + it - 2; id >= 0; --id)
-    depth[id] = depth[parent[id]] + 1;
-  for (int i = 0; i < n; ++i) len_out[order[i]] = depth[i];
+    return t;
+  }();
+  return tbl[v];
 }
 
-// Encode one block. Returns chunk size in bytes (3..255) or 0 on error.
-// Writes into a local padded scratch first: the word-based BitWriter may
-// touch up to 3 bytes past the last field, which must not cross into the
-// next lane row (owned by another thread).
+// Encode one block into a zero-filled 256-byte lane. Returns the chunk
+// size in bytes (3..255) or 0 on error. The shared per-block encoder
+// (block_codec.h) writes stream-space words; the lane holds their bytes.
 int encode_block(const int16_t* coef, uint8_t* out_lane) {
-  uint8_t scratch[kLane + 8];
-  uint8_t* out = scratch;
-  // zigzag scan + trailing-zero trim (all-zero -> single 0 symbol)
-  int16_t msg[64];
-  int msg_len = 0;
-  for (int i = 0; i < 64; ++i) {
-    msg[i] = coef[kZigzag[i]];
-    if (msg[i] != 0) msg_len = i + 1;
-  }
-  if (msg_len == 0) msg_len = 1;  // msg[0] == 0
-
-  // frequency table over distinct symbols (sorted ascending by symbol)
-  int16_t syms[kMaxSyms];
-  uint16_t freq[kMaxSyms];
-  int n_sym = 0;
-  {
-    int16_t sorted[64];
-    std::memcpy(sorted, msg, sizeof(int16_t) * msg_len);
-    std::sort(sorted, sorted + msg_len);
-    for (int i = 0; i < msg_len; ++i) {
-      if (n_sym == 0 || sorted[i] != syms[n_sym - 1]) {
-        syms[n_sym] = sorted[i];
-        freq[n_sym] = 1;
-        ++n_sym;
-      } else {
-        ++freq[n_sym - 1];
-      }
-    }
-  }
-
-  uint8_t lens[kMaxSyms];
-  huffman_lengths(freq, n_sym, lens);
-
-  // canonical order: (length, symbol) ascending; syms[] is already
-  // symbol-ascending, so a stable sort by length suffices.
-  int corder[kMaxSyms];
-  for (int i = 0; i < n_sym; ++i) corder[i] = i;
-  std::stable_sort(corder, corder + n_sym,
-                   [&](int a, int b) { return lens[a] < lens[b]; });
-  uint8_t code_len[kMaxSyms];  // per distinct-symbol index
-  uint8_t code_val[kMaxSyms];
-  {
-    uint32_t code = 0;
-    int prev_len = 0;
-    for (int i = 0; i < n_sym; ++i) {
-      int s = corder[i];
-      code <<= (lens[s] - prev_len);
-      prev_len = lens[s];
-      if (lens[s] > 8) return 0;  // cannot happen: weight <= 64 < Fib(11)
-      code_len[s] = lens[s];
-      code_val[s] = uint8_t(code);
-      ++code;
-    }
-  }
-
-  // total encoded bits
-  int enc_bits = 0;
-  for (int i = 0; i < n_sym; ++i) enc_bits += int(freq[i]) * code_len[i];
-  if (enc_bits > 512) return 0;  // cannot happen: <= 64 * 8
-
-  // serialize: u16 enc_bits LE, u8 tree_size, tree groups, payload bits
-  std::memset(out, 0, sizeof(scratch));
-  out[0] = uint8_t(enc_bits & 0xFF);
-  out[1] = uint8_t(enc_bits >> 8);
-  int pos = 3;
-  // tree groups: runs of equal length in canonical order, <= 32 per group
-  {
-    int i = 0;
-    while (i < n_sym) {
-      int len = code_len[corder[i]];
-      int run_end = i;
-      while (run_end < n_sym && code_len[corder[run_end]] == len) ++run_end;
-      for (int start = i; start < run_end; start += 32) {
-        int cnt = std::min(32, run_end - start);
-        out[pos++] = uint8_t(((len - 1) << 5) | (cnt - 1));
-        BitWriter bw(out + pos);
-        for (int k = start; k < start + cnt; ++k) {
-          int16_t s = syms[corder[k]];
-          uint32_t v = s < 0 ? uint32_t(2048 + s) : uint32_t(s);
-          bw.put_lsb(v, 11);
-        }
-        pos += (cnt * 11 + 7) / 8;
-      }
-      i = run_end;
-    }
-  }
-  int tree_size = pos - 3;
-  if (tree_size > 255) return 0;
-  out[2] = uint8_t(tree_size);
-
-  // payload: per-message-symbol codes MSB-first, packed LSB-first in bytes
-  {
-    BitWriter bw(out + pos);
-    for (int i = 0; i < msg_len; ++i) {
-      // binary-search the distinct-symbol table (symbol-ascending)
-      int lo = 0, hi = n_sym - 1;
-      while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (syms[mid] < msg[i]) lo = mid + 1; else hi = mid;
-      }
-      bw.put_code_msb(code_val[lo], code_len[lo]);
-    }
-    pos += (enc_bits + 7) / 8;
-  }
-  if (pos > 255) return 0;  // chunk size must fit the u8 size field
-  std::memcpy(out_lane, scratch, kLane);
-  return pos;
+  uint32_t words[kLane / 4] = {0};
+  auto sink = [&](int w, uint32_t word) { words[w] = word; };
+  int size = myyuv::encode_block(coef, sink);
+  if (size > myyuv::kMaxChunk) return 0;  // must fit the u8 size field
+  for (int j = 0; j < kLane; ++j)
+    out_lane[j] = bitrev8_tbl(uint8_t(words[j >> 2] >> (24 - 8 * (j & 3))));
+  return size;
 }
 
 // Decode one chunk into a row-major int16[64] block. Returns 0 on success.
@@ -247,57 +65,14 @@ int decode_block(const uint8_t* chunk, int chunk_size, int16_t* coef) {
   int enc_bits = chunk[0] | (chunk[1] << 8);
   int tree_size = chunk[2];
   if (3 + tree_size + (enc_bits + 7) / 8 > chunk_size) return 2;
-
-  // parse tree groups -> canonical tables:
-  // count[len], symbols concatenated in (length, stored-order)
-  int counts[9] = {0};
-  int16_t symtab[9][kMaxSyms];
-  int pos = 3;
-  while (pos - 3 < tree_size) {
-    int info = chunk[pos++];
-    int len = (info >> 5) + 1;
-    int cnt = (info & 31) + 1;
-    BitReader br(chunk + pos);
-    for (int k = 0; k < cnt; ++k) {
-      if (counts[len] >= kMaxSyms) return 3;
-      uint32_t v = br.get_lsb(11);
-      symtab[len][counts[len]++] = v >= 1024 ? int16_t(int(v) - 2048)
-                                             : int16_t(v);
-    }
-    pos += (cnt * 11 + 7) / 8;
-  }
-  if (pos - 3 != tree_size) return 4;
-
-  // canonical decode (puff.c-style first/count walk)
-  std::memset(coef, 0, sizeof(int16_t) * 64);
-  BitReader br(chunk + pos);
-  int bit = 0, out_i = 0;
-  while (bit < enc_bits && out_i < 64) {
-    int code = 0, first = 0, len = 1;
-    int16_t sym = 0;
-    bool found = false;
-    for (; len <= 8; ++len) {
-      if (bit >= enc_bits) return 5;
-      code |= br.get_bit();
-      ++bit;
-      int c = counts[len];
-      if (code < first + c) {
-        if (c == 0) return 6;
-        sym = symtab[len][code - first];
-        found = true;
-        break;
-      }
-      first = (first + c) << 1;
-      code <<= 1;
-    }
-    if (!found) return 7;
-    coef[kZigzag[out_i++]] = sym;
-  }
-  if (bit != enc_bits) return 8;
-  return 0;
+  auto src = [&](int w) {
+    uint32_t word = 0;
+    for (int j = 4 * w; j < 4 * w + 4; ++j)
+      word = (word << 8) | (j < chunk_size ? bitrev8_tbl(chunk[j]) : 0u);
+    return word;
+  };
+  return myyuv::decode_block(src, coef);
 }
-
-void parallel_for(int64_t n, int n_threads, void (*)(void)) = delete;
 
 template <typename F>
 void run_parallel(int64_t n, int n_threads, F&& fn) {
@@ -389,90 +164,28 @@ int64_t myyuv_decode_blocks(const uint8_t* sizes, const uint8_t* content,
 // division by the quality-scaled table, std::round half-away-from-zero.
 // MUST be compiled with -ffp-contract=off: -march=native enables FMA3 and
 // GCC would otherwise contract mul+add into single-rounded FMAs, breaking
-// bit-exactness exactly like the TPU backend does (kernels/device.py).
+// bit-exactness (kernels/device.py guards the XLA path the same way).
 // ---------------------------------------------------------------------------
 
 namespace {
 
-// float32 orthonormal DCT-II matrix; the 64 exact constants are part of the
-// format contract (kernels/constants.py DCT_MATRIX8).
-const float kDct[64] = {
-    0.3535533845424652f, 0.3535533845424652f, 0.3535533845424652f,
-    0.3535533845424652f, 0.3535533845424652f, 0.3535533845424652f,
-    0.3535533845424652f, 0.3535533845424652f,
-    0.4903925955295563f, 0.4157347679138184f, 0.277785062789917f,
-    0.09754510968923569f, -0.09754515439271927f, -0.2777851521968842f,
-    -0.4157347977161407f, -0.4903926253318787f,
-    0.4619397222995758f, 0.1913416981697083f, -0.1913417428731918f,
-    -0.4619397819042206f, -0.4619397222995758f, -0.1913415491580963f,
-    0.1913417875766754f, 0.4619397521018982f,
-    0.4157347679138184f, -0.09754515439271927f, -0.4903926253318787f,
-    -0.2777849733829498f, 0.2777851819992065f, 0.4903925955295563f,
-    0.09754502773284912f, -0.4157348573207855f,
-    0.3535533547401428f, -0.3535533547401428f, -0.353553295135498f,
-    0.3535534739494324f, 0.3535533547401428f, -0.3535535931587219f,
-    -0.3535532355308533f, 0.3535533845424652f,
-    0.277785062789917f, -0.4903926253318787f, 0.09754519909620285f,
-    0.4157346487045288f, -0.4157348573207855f, -0.09754510223865509f,
-    0.4903926253318787f, -0.2777853906154633f,
-    0.1913416981697083f, -0.4619397222995758f, 0.4619397521018982f,
-    -0.1913419365882874f, -0.1913414746522903f, 0.4619396328926086f,
-    -0.4619398415088654f, 0.1913419365882874f,
-    0.09754510968923569f, -0.2777849733829498f, 0.4157346487045288f,
-    -0.4903925657272339f, 0.4903926849365234f, -0.4157347679138184f,
-    0.2777855396270752f, -0.09754576534032822f};
-
-// acc[i][j] = sum_k a[i][k] * b[k][j], rounded to f32 after every op
-inline void mm8(const float* a, const float* b, float* out) {
-  for (int i = 0; i < 8; ++i) {
-    for (int j = 0; j < 8; ++j) {
-      float acc = a[i * 8 + 0] * b[0 * 8 + j];
-      for (int k = 1; k < 8; ++k) acc = acc + a[i * 8 + k] * b[k * 8 + j];
-      out[i * 8 + j] = acc;
-    }
-  }
-}
-
-inline void mm8_bt(const float* a, const float* bt, float* out) {
-  // out = a . bt^T with bt stored row-major (i.e. out[i][j] = sum a[i][k] bt[j][k])
-  for (int i = 0; i < 8; ++i) {
-    for (int j = 0; j < 8; ++j) {
-      float acc = a[i * 8 + 0] * bt[j * 8 + 0];
-      for (int k = 1; k < 8; ++k) acc = acc + a[i * 8 + k] * bt[j * 8 + k];
-      out[i * 8 + j] = acc;
-    }
-  }
-}
+const float kDct[64] = {MYYUV_DCT_MATRIX};
 
 void dct_quantize_block(const uint8_t* px, int stride, const float* qtab,
                         int16_t* coef) {
-  float x[64], t[64], c[64];
+  float x[64];
   for (int i = 0; i < 8; ++i)
     for (int j = 0; j < 8; ++j)
       x[i * 8 + j] = float(px[i * stride + j]) - 128.0f;
-  mm8(kDct, x, t);       // C . B
-  mm8_bt(t, kDct, c);    // (C.B) . C^T
-  for (int i = 0; i < 64; ++i)
-    coef[i] = int16_t(std::round(c[i] / qtab[i]));
+  myyuv::dct_quantize(x, qtab, kDct, coef);
 }
 
 void dequantize_idct_block(const int16_t* coef, const float* qtab,
                            uint8_t* px, int stride) {
-  float x[64], t[64], c[64];
-  for (int i = 0; i < 64; ++i) x[i] = float(coef[i]) * qtab[i];
-  // C^T . X : (C^T)[i][k] = C[k][i]
+  uint8_t out[64];
+  myyuv::dequantize_idct(coef, qtab, kDct, out);
   for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) {
-      float acc = kDct[0 * 8 + i] * x[0 * 8 + j];
-      for (int k = 1; k < 8; ++k) acc = acc + kDct[k * 8 + i] * x[k * 8 + j];
-      t[i * 8 + j] = acc;
-    }
-  mm8(t, kDct, c);       // (C^T.X) . C
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) {
-      int v = int(std::round(c[i * 8 + j])) + 128;
-      px[i * stride + j] = uint8_t(v < 0 ? 0 : (v > 255 ? 255 : v));
-    }
+    for (int j = 0; j < 8; ++j) px[i * stride + j] = out[i * 8 + j];
 }
 
 }  // namespace
@@ -538,31 +251,13 @@ int64_t myyuv_decompress_plane(const uint8_t* sizes, const uint8_t* content,
 // ---------------------------------------------------------------------------
 // Word-aligned device interchange <-> exact byte stream conversion.
 //
-// The TPU entropy kernels produce/consume per-block chunks packed into
+// The device codec kernels produce/consume per-block chunks packed into
 // big-endian u32 words of BIT-REVERSED bytes, with each chunk padded to a
 // 4-byte boundary (the "aligned word stream"). These converters translate
 // between that interchange and the reference's exact packed byte stream
 // (DCTYUVPlane content, DCT.cpp:16-110) in one linear pass.
 // ---------------------------------------------------------------------------
 
-namespace {
-
-inline uint8_t bitrev8_tbl(uint8_t v) {
-  static const auto tbl = [] {
-    std::array<uint8_t, 256> t{};
-    for (int i = 0; i < 256; ++i) {
-      uint8_t x = uint8_t(i);
-      x = uint8_t(((x & 0xF0) >> 4) | ((x & 0x0F) << 4));
-      x = uint8_t(((x & 0xCC) >> 2) | ((x & 0x33) << 2));
-      x = uint8_t(((x & 0xAA) >> 1) | ((x & 0x55) << 1));
-      t[size_t(i)] = x;
-    }
-    return t;
-  }();
-  return tbl[v];
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -626,7 +321,7 @@ int64_t myyuv_expand_split(const uint8_t* content, const int32_t* sizes,
   for (int64_t k = 0; k < 64 * a_cols; ++k) a[k] = 0;
   for (int64_t k = 0; k < capb * 8; ++k) b[k] = 0;
   // pad blocks (n..8*a_cols) carry the minimal valid all-zero-block
-  // chunk header word (pallas_decode._FILLER_W0: enc_bits=1, tree=3 B)
+  // chunk header word (kernels/words.FILLER_W0: enc_bits=1, tree=3 B)
   // so the decode kernels' loop bounds stay sane
   for (int64_t i = n_blocks; i < 8 * a_cols; ++i)
     a[int64_t(i & 7) * a_cols + (i >> 3)] = 0x8000c000u;

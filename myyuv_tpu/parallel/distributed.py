@@ -13,7 +13,7 @@ framework's scale-out story:
   valid single-file ``.myyuv`` payload.
 * global RD statistics (symbol histograms, SSE) ride the replicated-output
   shardings of engine.batch.make_sharded_roundtrip — XLA lowers them to
-  psum over ICI within a slice and DCN across hosts.
+  psum over NVLink within a host and the network across hosts.
 """
 
 from __future__ import annotations

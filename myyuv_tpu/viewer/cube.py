@@ -1,7 +1,7 @@
 """Spinning textured shapes: the software-rendered analog of the
 reference's OpenGL demo (myyuv_opengl/spinning_cube/).
 
-A TPU pod has no display, so the demo renders frames with a pure-JAX
+A compute node has no display, so the demo renders frames with a pure-JAX
 triangle rasterizer and writes them as BMPs. Feature parity with the
 reference demo:
 
@@ -45,6 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 
 F32 = jnp.float32
+_HI = jax.lax.Precision.HIGHEST
 
 SHAPES_COUNT_MAX = 1000          # spinning_cube.cpp:15
 SCREEN_WIDTH = 1000              # spinning_cube.cpp:16
@@ -208,8 +209,12 @@ def render_scene(texture_bgrx: jnp.ndarray, verts: jnp.ndarray,
                  positions: jnp.ndarray, angles_deg: jnp.ndarray,
                  view: jnp.ndarray, proj: jnp.ndarray,
                  out_h: int, out_w: int) -> jnp.ndarray:
-    """Render N spinning shapes -> [out_h, out_w, 4] uint8 BGRX."""
-    vp = proj @ view                                       # [4, 4]
+    """Render N spinning shapes -> [out_h, out_w, 4] uint8 BGRX.
+
+    Every float32 product runs at HIGHEST precision: on the GPU a default
+    f32 matmul may run in TF32 (about three decimal digits), which would
+    move rasterized edges between devices."""
+    vp = jnp.matmul(proj, view, precision=_HI)             # [4, 4]
     ys = jnp.arange(out_h, dtype=F32)[:, None] + F32(0.5)
     xs = jnp.arange(out_w, dtype=F32)[None, :] + F32(0.5)
 
@@ -225,9 +230,10 @@ def render_scene(texture_bgrx: jnp.ndarray, verts: jnp.ndarray,
         ra = jnp.radians(ang)
         ca, sa = jnp.cos(ra), jnp.sin(ra)
         rot_y = jnp.array([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]], F32)
-        world = verts @ rot_y.T + pos[None, :]
-        clip = jnp.concatenate(
-            [world, jnp.ones((world.shape[0], 1), F32)], axis=1) @ vp.T
+        world = jnp.matmul(verts, rot_y.T, precision=_HI) + pos[None, :]
+        clip = jnp.matmul(jnp.concatenate(
+            [world, jnp.ones((world.shape[0], 1), F32)], axis=1), vp.T,
+            precision=_HI)
         wc = clip[:, 3]
         ok_v = wc > F32(_NEAR)                             # near-plane cull
         wsafe = jnp.where(ok_v, wc, 1.0)

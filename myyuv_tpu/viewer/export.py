@@ -2,7 +2,7 @@
 
 The reference ships three GUI viewers (SDL3, OpenGL viewer, spinning cube)
 whose display math is a fragment-shader YUV->RGB conversion
-(myyuv_opengl/viewer/frag_yuv.glsl). A TPU pod has no display server, so the
+(myyuv_opengl/viewer/frag_yuv.glsl). A compute node has no display server, so the
 framework's "viewer" is (a) the device YUV->RGB kernel
 (kernels/device.iyuv_to_bgrx — same shader math), (b) this BMP writer for
 the result, and (c) viewer/terminal.py for in-terminal ANSI display.

@@ -95,7 +95,7 @@ def test_round_half_away_edge_cases():
 
 
 def test_fast_precision_close(rng):
-    """MXU fast path: coefficients within +-1 of exact (not bit-exact)."""
+    """Matmul fast path: coefficients within +-1 of exact (not bit-exact)."""
     blocks = _rand_blocks(rng, 64)
     qt = scalar.plane_qtable(0, 50)
     exact = scalar.dct_quantize_blocks(blocks, qt)

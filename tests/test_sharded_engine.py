@@ -2,8 +2,8 @@
 
 Validates the multi-chip design without hardware (SURVEY.md §4): frames
 shard over the ``data`` axis, block rows over ``block``; replicated metrics
-force XLA to insert the cross-device reductions (psum over ICI on real
-hardware).
+force XLA to insert the cross-device reductions (psum over NVLink on
+real hardware).
 """
 
 import numpy as np

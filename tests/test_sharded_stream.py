@@ -1,7 +1,6 @@
 """Sharded FLAGSHIP codec on the virtual 8-device CPU mesh.
 
-Round 2 sharded the round-1 flat encoder; these tests pin the round-3
-contract: the production frame pipeline (dense two-region interchange)
+These tests pin the sharded contract: the production frame pipeline (dense two-region interchange)
 runs under shard_map with plane block rows contiguous over the mesh,
 and produces the SAME BYTES as the single-device path — including a
 full .myyuv file assembled from the mesh, and batches composed through

@@ -1,8 +1,8 @@
 """K-frames-in-flight streaming drivers (engine/streaming.py).
 
-CPU runs the XLA fallback kernels through the same graph shapes as the
-chip; byte-equality against the synchronous frame API is the contract
-(the on-chip throughput numbers live in bench.py / tools/exp_r4*.py).
+CPU runs the codec kernels' XLA implementation through the same graphs as
+the GPU; byte-equality against the synchronous frame API is the contract
+(throughput on the card is bench.py's).
 """
 
 import numpy as np
@@ -168,7 +168,7 @@ def test_roundtrip_scan_matches_frame_api(rng):
     vs = jnp.broadcast_to(dev[2], (k,) + dev[2].shape)
     totals, oks = ds.roundtrip_scan(ys, us, vs, *qts)
     # the single-frame path must itself succeed, or the equality below
-    # would pass trivially with both paths returning False (ADVICE r4)
+    # would pass trivially with both paths returning False
     assert bool(np.asarray(ok).all() if np.asarray(ok).ndim else ok)
     assert np.asarray(oks).all()
     assert (np.asarray(totals) == int(total)).all()

@@ -25,7 +25,7 @@ def test_rd_curve_monotone(images_dir):
 def test_rd_device_backend_rate_matches_host(images_dir):
     """The flagship-codec rate (entropy_backend='device') must equal the
     host coder's byte count exactly — the device entropy path produces
-    byte-identical streams (BASELINE config 4 guard)."""
+    byte-identical streams."""
     from myyuv_tpu import YUVImage
     img = YUVImage.load(images_dir / "chef-with-trumpet.myyuv")
     y, u, v = img.planes()[:3]

@@ -1,10 +1,10 @@
 """Word-contract frame format (engine/word_frame): the packed i32
-device-resident frame representation (VERDICT r4 #5).
+device-resident frame representation.
 
-Runs the Pallas kernels in interpret mode on small frames so the full
+Runs the codec kernels' CPU implementation on small frames so the full
 contract — pack/unpack inversion, interchange byte-equality with the
 plane-contract compress, roundtrip pixel-exactness vs the scalar
-oracle, scan batching — is covered on CPU."""
+oracle, scan batching, column sharding — is covered on CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +16,6 @@ from myyuv_tpu.engine import word_frame as wf
 from myyuv_tpu.kernels import scalar
 
 H, W = 32, 64
-TILE = 8
 
 
 @pytest.fixture
@@ -44,9 +43,8 @@ def _scalar_roundtrip(planes, q=50):
 
 def test_pack_unpack_inverse(rng):
     y, u, v = _frame(rng)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
-    ny8, nc8, ntp = wf.frame_cols(H, W, TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
+    ny8, nc8, ntp = wf.frame_cols(H, W)
     assert xw.shape == (128, ntp)
     ry, ru, rv = wf.unpack_frame(xw, H, W)
     assert np.array_equal(np.asarray(ry), y)
@@ -59,10 +57,9 @@ def test_compress_words_matches_plane_contract(rng):
     plane-contract compress on the same pixels."""
     y, u, v = _frame(rng)
     qts = eb.plane_qtables([50] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
     A, C, sizes, total, ok = wf.compress_words(
-        xw, *qts, h=H, w=W, interpret=True, tile=TILE)
+        xw, *qts, h=H, w=W)
     assert bool(ok)
     cA, cC, csizes, ctotal, cok = ds.compress_frame(
         jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), *qts)
@@ -78,10 +75,8 @@ def test_compress_words_matches_plane_contract(rng):
 def test_roundtrip_words_pixel_exact(rng):
     y, u, v = _frame(rng)
     qts = eb.plane_qtables([50] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
-    rxw, total, ok = wf.roundtrip_words(xw, *qts, h=H, w=W,
-                                        interpret=True, tile=TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
+    rxw, total, ok = wf.roundtrip_words(xw, *qts, h=H, w=W)
     assert bool(ok) and rxw.shape == xw.shape
     ry, ru, rv = wf.unpack_frame(rxw, H, W)
     wy, wu, wv = _scalar_roundtrip([y, u, v])
@@ -90,33 +85,14 @@ def test_roundtrip_words_pixel_exact(rng):
     assert np.array_equal(np.asarray(rv), wv)
 
 
-def test_decompress_words_fused_variant(rng):
-    y, u, v = _frame(rng)
-    qts = eb.plane_qtables([50] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
-    A, C, sizes, _, ok = wf.compress_words(
-        xw, *qts, h=H, w=W, interpret=True, tile=TILE)
-    assert bool(ok)
-    x1, ok1 = wf.decompress_words(A, C, sizes, *qts, h=H, w=W,
-                                  fused=False, interpret=True, tile=TILE)
-    x2, ok2 = wf.decompress_words(A, C, sizes, *qts, h=H, w=W,
-                                  fused=True, interpret=True, tile=TILE)
-    assert bool(ok1) and bool(ok2)
-    assert np.array_equal(np.asarray(x1), np.asarray(x2))
-
-
 def test_roundtrip_words_scan(rng):
     y, u, v = _frame(rng)
     qts = eb.plane_qtables([50] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
-    _, total, ok = wf.roundtrip_words(xw, *qts, h=H, w=W,
-                                      interpret=True, tile=TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
+    _, total, ok = wf.roundtrip_words(xw, *qts, h=H, w=W)
     assert bool(ok)
     xws = jnp.broadcast_to(xw, (3,) + xw.shape)
-    totals, oks = wf.roundtrip_words_scan(xws, *qts, h=H, w=W,
-                                          interpret=True, tile=TILE)
+    totals, oks = wf.roundtrip_words_scan(xws, *qts, h=H, w=W)
     assert np.asarray(oks).all()
     assert (np.asarray(totals) == int(total)).all()
 
@@ -126,13 +102,13 @@ def test_word_conversions_match_plane_path(rng):
     == iyuv_to_bgrx(unpack_frame(xw)): the fused word-contract
     conversions against the plane-contract chain.
 
-    CPU-jit caveat: unlike the TPU backend, CPU XLA folds the
-    runtime-zero FMA guard and contracts the conversion mul+add
-    chains, so two differently-fused modules can disagree by 1 ulp
-    exactly at trunc/rint boundaries. The content below avoids pixels
-    within 1e-3 of those boundaries (float64 model), so this test
-    checks the WIRING deterministically; bit-exactness of the real
-    kernels is asserted on-chip (tools/check_tpu_bitexact.py)."""
+    CPU-jit caveat: CPU XLA may fold the runtime-zero FMA guard and
+    contract the conversion mul+add chains, so two differently-fused
+    modules can disagree by 1 ulp exactly at trunc/rint boundaries.
+    The content below avoids pixels within 1e-3 of those boundaries
+    (float64 model), so this test checks the WIRING deterministically;
+    bit-exactness of the conversions on the GPU is asserted by
+    chip_smoke.py."""
     from myyuv_tpu.kernels import device as kdev
     bgrx = rng.integers(0, 256, (H, W, 4), np.uint8)
     bgrx[..., 3] = 0
@@ -145,9 +121,9 @@ def test_word_conversions_match_plane_path(rng):
         risky |= np.abs(x - np.round(x)) < 1e-3
     bgrx[risky] = 0                       # black pixels are boundary-safe
     bdev = jnp.asarray(bgrx)
-    xw = wf.bgrx_to_frame(bdev, tile=TILE)
+    xw = wf.bgrx_to_frame(bdev)
     y, u, v = kdev.bgrx_to_iyuv(bdev)
-    want = wf.pack_frame(y, u, v, tile=TILE)
+    want = wf.pack_frame(y, u, v)
     assert np.array_equal(np.asarray(xw), np.asarray(want))
     # preview direction: rint boundaries live at x.5 — risky pixels get
     # neutral chroma (vv = uu = 0, products exactly zero)
@@ -162,7 +138,7 @@ def test_word_conversions_match_plane_path(rng):
     u2[risky_c] = 128
     v2[risky_c] = 128
     fr = wf.pack_frame(jnp.asarray(y2), jnp.asarray(u2),
-                       jnp.asarray(v2), tile=TILE)
+                       jnp.asarray(v2))
     got = wf.frame_to_bgrx(fr, H, W)
     wantpx = kdev.iyuv_to_bgrx(jnp.asarray(y2), jnp.asarray(u2),
                                jnp.asarray(v2))
@@ -182,21 +158,20 @@ def test_sharded_word_codec_byte_identical(rng):
     mesh = meshlib.make_mesh((2, 4), devs)
     y, u, v = _frame(rng)
     qts = eb.plane_qtables([50] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
-    xws = wf.pad_frame_cols(xw, 8, tile=TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
+    xws = wf.pad_frame_cols(xw, 8)
     A, C, sizes, total, ok = wf.compress_words_sharded(
-        mesh, xws, *qts, h=H, w=W, interpret=True, tile=TILE)
+        mesh, xws, *qts, h=H, w=W)
     assert bool(ok)
     rA, rC, rsizes, rtotal, rok = wf.compress_words(
-        xw, *qts, h=H, w=W, interpret=True, tile=TILE)
+        xw, *qts, h=H, w=W)
     assert bool(rok) and int(total) == int(rtotal)
     assert np.array_equal(np.asarray(sizes), np.asarray(rsizes))
     n8 = (np.asarray(rsizes).size + 7) // 8
     assert np.array_equal(np.asarray(A)[:, :n8], np.asarray(rA)[:, :n8])
     assert np.array_equal(np.asarray(C)[:, :n8], np.asarray(rC)[:, :n8])
     rxw, dok = wf.decompress_words_sharded(
-        mesh, A, C, sizes, *qts, h=H, w=W, interpret=True, tile=TILE)
+        mesh, A, C, sizes, *qts, h=H, w=W)
     assert bool(dok)
     ry, ru, rv = wf.unpack_frame(rxw, H, W)
     wy, wu, wv = _scalar_roundtrip([y, u, v])
@@ -213,19 +188,15 @@ def test_ingest_preview_single_dispatch_match(rng):
     bgrx[..., 3] = 0
     bdev = jnp.asarray(bgrx)
     qts = eb.plane_qtables([50] * 3)
-    A1, C1, s1, t1, ok1 = wf.ingest_frame(bdev, *qts, h=H, w=W,
-                                          interpret=True, tile=TILE)
-    xw = wf.bgrx_to_frame(bdev, tile=TILE)
-    A2, C2, s2, t2, ok2 = wf.compress_words(xw, *qts, h=H, w=W,
-                                            interpret=True, tile=TILE)
+    A1, C1, s1, t1, ok1 = wf.ingest_frame(bdev, *qts, h=H, w=W)
+    xw = wf.bgrx_to_frame(bdev)
+    A2, C2, s2, t2, ok2 = wf.compress_words(xw, *qts, h=H, w=W)
     assert bool(ok1) == bool(ok2) and int(t1) == int(t2)
     assert np.array_equal(np.asarray(s1), np.asarray(s2))
     assert np.array_equal(np.asarray(A1), np.asarray(A2))
     assert np.array_equal(np.asarray(C1), np.asarray(C2))
-    px1, dok1 = wf.preview_frame(A1, C1, s1, *qts, h=H, w=W,
-                                 interpret=True, tile=TILE)
-    fr, dok2 = wf.decompress_words(A1, C1, s1, *qts, h=H, w=W,
-                                   interpret=True, tile=TILE)
+    px1, dok1 = wf.preview_frame(A1, C1, s1, *qts, h=H, w=W)
+    fr, dok2 = wf.decompress_words(A1, C1, s1, *qts, h=H, w=W)
     px2 = wf.frame_to_bgrx(fr, H, W)
     assert bool(dok1) and bool(dok2)
     assert np.array_equal(np.asarray(px1), np.asarray(px2))
@@ -237,22 +208,21 @@ def test_decompress_words_corrupt_stream_flags(rng):
     produce silently wrong pixels."""
     y, u, v = _frame(rng)
     qts = eb.plane_qtables([50] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
     A, C, sizes, _, ok = wf.compress_words(
-        xw, *qts, h=H, w=W, interpret=True, tile=TILE)
+        xw, *qts, h=H, w=W)
     assert bool(ok)
     # stomp chunk 0's tree section: an impossible code-length group
     badA = np.asarray(A).copy()
     badA[0, 0] = badA[0, 0] ^ 0x00FFFF00
     _, dok = wf.decompress_words(jnp.asarray(badA), C, sizes, *qts,
-                                 h=H, w=W, interpret=True, tile=TILE)
+                                 h=H, w=W)
     assert not bool(dok)
     # oversized sizes (beyond the window) must also flag
     bad_sizes = np.asarray(sizes).copy()
     bad_sizes[0] = 255
     _, dok2 = wf.decompress_words(A, C, jnp.asarray(bad_sizes), *qts,
-                                  h=H, w=W, interpret=True, tile=TILE)
+                                  h=H, w=W)
     assert not bool(dok2)
 
 
@@ -263,26 +233,53 @@ def test_compress_words_overflow_flags(rng):
     u = rng.integers(0, 256, (H // 2, W // 2)).astype(np.uint8)
     v = rng.integers(0, 256, (H // 2, W // 2)).astype(np.uint8)
     qts = eb.plane_qtables([100] * 3)
-    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v),
-                       tile=TILE)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
     _, _, _, _, ok = wf.compress_words(
-        xw, *qts, h=H, w=W, interpret=True, tile=TILE)
+        xw, *qts, h=H, w=W)
     assert not bool(ok)
     A, C, sizes, total, ok2 = wf.compress_words(
-        xw, *qts, h=H, w=W, cont=ds.CONT_ROOMY, interpret=True,
-        tile=TILE)
+        xw, *qts, h=H, w=W, cont=ds.CONT_ROOMY)
     assert bool(ok2)
-    rxw, dok = wf.decompress_words(A, C, sizes, *qts, h=H, w=W,
-                                   interpret=True, tile=TILE)
+    rxw, dok = wf.decompress_words(A, C, sizes, *qts, h=H, w=W)
     assert bool(dok)
     ry, ru, rv = wf.unpack_frame(rxw, H, W)
     wy, wu, wv = _scalar_roundtrip([y, u, v], q=100)
-    # CPU-interpret caveat: the production word kernels carry no
-    # FMA-defeat (the TPU toolchain does not contract — sentinel in
-    # check_tpu_bitexact.py) but CPU XLA DOES contract mul+add chains,
-    # so noise content at q100 lands within +-1 of the scalar oracle
-    # here; byte/pixel exactness on the REAL chip is what
-    # tools/check_tpu_frame.py --sweep asserts.
     for g, wv_ in ((ry, wy), (ru, wu), (rv, wv)):
-        assert np.abs(np.asarray(g).astype(int)
-                      - wv_.astype(int)).max() <= 1
+        assert np.array_equal(np.asarray(g), wv_)
+
+
+@pytest.mark.parametrize("impl", ["xla", "ffi"])
+def test_shard_alignment_four_devices(rng, impl):
+    """4-device column sharding at a geometry whose slabs (32 columns
+    each) are not a multiple of any 128/512-column tile: pad_frame_cols
+    aligns every slab to the kernels' one block width (codec.COLS), the
+    sharded roundtrip keeps the frame's shape, and the assembled pixels
+    equal the single-device result."""
+    import jax
+    from myyuv_tpu.kernels import codec
+    from myyuv_tpu.parallel import mesh as meshlib
+
+    devs = jax.devices("cpu")[:4]
+    if len(devs) < 4:
+        pytest.skip("needs 4 virtual devices")
+    mesh = meshlib.make_mesh((1, 4), devs)
+    y, u, v = _frame(rng)
+    qts = eb.plane_qtables([50] * 3)
+    xw = wf.pack_frame(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
+    xws = wf.pad_frame_cols(xw, 4)
+    assert xws.shape[1] == 4 * codec.COLS
+    A, C, sizes, total, ok = wf.compress_words_sharded(
+        mesh, xws, *qts, h=H, w=W, impl=impl)
+    assert bool(ok) and A.shape == (64, xws.shape[1])
+    rA, rC, rsizes, rtotal, rok = wf.compress_words(xw, *qts, h=H, w=W,
+                                                    impl=impl)
+    n8 = rA.shape[1]
+    assert np.array_equal(np.asarray(A)[:, :n8], np.asarray(rA))
+    assert np.array_equal(np.asarray(sizes), np.asarray(rsizes))
+    rxw, dok = wf.decompress_words_sharded(mesh, A, C, sizes, *qts, h=H,
+                                           w=W, impl=impl)
+    assert bool(dok) and rxw.shape == xws.shape
+    want, _ = wf.decompress_words(rA, rC, rsizes, *qts, h=H, w=W,
+                                  impl=impl)
+    for a, b in zip(wf.unpack_frame(rxw, H, W), wf.unpack_frame(want, H, W)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
